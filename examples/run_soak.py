@@ -6,13 +6,13 @@ utils/checkpoint.py) after every chunk and appending per-window stats to
 a JSONL, so a minute-scale (or hour-scale) soak survives preemption: kill
 it at any point and rerun with --resume to continue from the last
 checkpoint instead of tick 0.  The reference has no analogue (a Gazebo
-session lost is a session rerun); on a batched TPU soak the state worth
+session lost is a session rerun); on a batched soak the state worth
 keeping is a few hundred KB.
 
 Usage:
     python examples/run_soak.py --batch 64 --windows 60 --window 1000 \
         [--estimator truth|kf] [--checkpoint-every 10] [--resume] \
-        [--out /tmp/soak]
+        [--out chiprun_out/soak]
 """
 
 import argparse
@@ -27,7 +27,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from mpc_limx_control_tpu.utils import compile_cache
+
+compile_cache.enable()
 
 from mpc_limx_control_tpu.core.config import ControllerConfig
 from mpc_limx_control_tpu.control import rollout as ro
@@ -46,7 +48,8 @@ def main():
     ap.add_argument("--estimator", choices=("truth", "kf"),
                     default="truth")
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--out", type=str, default="/tmp/soak")
+    ap.add_argument("--out", type=str, default=str(
+        Path(__file__).resolve().parent.parent / "chiprun_out" / "soak"))
     args = ap.parse_args()
 
     cfg = ControllerConfig.walking()

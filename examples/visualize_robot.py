@@ -16,7 +16,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")   # pure visualization: no TPU
+jax.config.update("jax_platforms", "cpu")   # pure visualization
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,7 +45,9 @@ def main():
     ap.add_argument("--q", type=str, default=None,
                     help="six comma-separated joint angles (rad)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", type=str, default="/tmp/robot.png")
+    ap.add_argument("--out", type=str, default=str(
+        Path(__file__).resolve().parent.parent / "chiprun_out"
+        / "robot.png"))
     args = ap.parse_args()
 
     if args.q:
@@ -80,6 +82,7 @@ def main():
     ax.set_ylim(-lim / 2, lim / 2)
     ax.set_zlim(-lim, 0.1)
     fig.tight_layout()
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     fig.savefig(args.out, dpi=120)
     print("wrote", args.out)
 

@@ -1,7 +1,7 @@
-"""mpc_limx_control_tpu — a TPU-native batched MPC engine for the limX TRON1
-point-foot biped.
+"""mpc_limx_control_tpu — a batched MPC engine for the limX TRON1 point-foot
+biped, written in JAX and run on an NVIDIA GPU.
 
-A from-scratch re-design (JAX / XLA / Pallas / pjit) of the capability set of
+A from-scratch re-design (JAX / XLA / Pallas / sharding) of the capability set of
 the C++/ROS reference `Fleming-Sung/mpc-limX-control`:
 
   * generic condensed linear-MPC pipeline (reference: src/QPSolver.cpp)
@@ -13,7 +13,7 @@ the C++/ROS reference `Fleming-Sung/mpc-limX-control`:
   * scripted "fake" state source (reference: include/state_estimator_fake.h)
   * closed-loop rollout harness (reference: src/qpSolver_test.cpp,
     src/linear_mpc_example.cpp)
-  * scenario-batched execution sharded over a TPU device mesh.
+  * scenario-batched execution sharded over a device mesh.
 
 Everything in the compute path is pure-functional, jit-compiled, and vmappable
 over a scenario batch axis; multi-chip scaling uses `jax.sharding` over a

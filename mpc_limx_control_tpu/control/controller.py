@@ -1,7 +1,7 @@
 """The TRON1 walking controller tick: estimate -> gait -> placement ->
 swing IK -> stance-force MPC -> joint command.
 
-This is the TPU-native counterpart of `MPC::run`
+This is the batched counterpart of `MPC::run`
 (include/MPCController.h:183-196) with the piece the reference left empty —
 `computeSupportFootForce` (include/MPCController.h:177-180) — actually
 implemented via the intended SRBD condensed-QP GRF solve (include/mpcQP.h),
@@ -104,9 +104,9 @@ def stance_mpc(cfg: ControllerConfig, odom: OdomState,
     on_l/on_r [N] in {0,1}: stance schedule per foot over the horizon.
 
     Solver dispatch mirrors the walking path: with warm state and
-    method "admm"/"admm_fused" the solve is the warm ADMM (fused Pallas
-    kernel on TPU — the two-foot variant of ops/mpc_fused_pallas.py);
-    otherwise the cold fixed-iteration PDIP.
+    method "admm"/"admm_fused" the solve is the warm ADMM (the two-foot
+    form of ops/mpc_fused_pallas.py); otherwise the cold fixed-iteration
+    PDIP.
 
     Returns (grf [6] world forces (L,R), residual, xi_pred [13],
     qp_state).
@@ -138,7 +138,7 @@ def stance_mpc(cfg: ControllerConfig, odom: OdomState,
 
     if (c.solver.method in ("admm", "admm_fused")
             and qp_warm is not None):
-        # NB the fused kernel's bounds are the full-stance constants —
+        # NB the solver's bounds are the full-stance constants —
         # correct for the standing schedule (on_l = on_r = 1), which is
         # the only schedule this warm path is used with (tick() routes
         # walking gaits to stance_mpc_single_support).
@@ -205,11 +205,10 @@ def stance_mpc_single_support(cfg: ControllerConfig, odom: OdomState,
         yaw_anchor = pos_anchor[..., 2]
 
     if c.solver.method == "admm_fused" and qp_warm is not None:
-        # prep-fused path: the SRBD linearization, exact nilpotent ZOH,
-        # walking reference, band condensation, Cholesky, and all warm
-        # ADMM iterations run inside ONE Pallas kernel
-        # (ops/mpc_fused_pallas.py:make_walking_fused) — the XLA-side
-        # prep alone was ~6.7 ms at B=4096.
+        # batched walking solve (ops/mpc_fused_pallas.py:
+        # make_walking_fused): SRBD linearization, exact nilpotent ZOH and
+        # walking reference in XLA; condensation, Cholesky and the warm
+        # ADMM iterations in one Triton kernel on the GPU.
         from mpc_limx_control_tpu.ops import mpc_fused_pallas as fqp
         solver = fqp.make_walking_fused(cfg)
         anchor3 = jnp.concatenate(
@@ -248,28 +247,15 @@ def stance_mpc_single_support(cfg: ControllerConfig, odom: OdomState,
     hu = jnp.asarray([0.0, 0.0, 0.0, 0.0, c.fz_max, -c.fz_min], dtype)
     h = jnp.tile(hu, N)
 
-    if (c.solver.method in ("admm_fused", "riccati")
-            and qp_warm is not None):
-        # admm_fused: fused condensation + warm-ADMM Pallas kernel — the
-        # band-form H/f build, the (H + rho G'G) Cholesky, and all ADMM
-        # iterations in ONE kernel in VMEM (ops/mpc_fused_pallas.py); no
-        # condensed QP is ever materialized in HBM.
-        # riccati: same ADMM iterates with the x-updates factorized by a
-        # backward Riccati recursion in the sparse form (ops/riccati.py)
-        # — kept as the measured HPIPM-style alternative (4x slower than
-        # the fused kernel at B=4096 on v5e; see NOTES.md).
-        # Cold solves (no warm state yet) fall through to the generic
-        # ADMM path below.
-        if c.solver.method == "riccati":
-            from mpc_limx_control_tpu.ops import riccati as ricmod
-            solver = ricmod.make_admm_riccati_single(c)
-            sol, qp_state = solver(Ad, Bd_t, x_ref, xi0,
-                                   qp_warm[0], qp_warm[1])
-        else:
-            from mpc_limx_control_tpu.ops import mpc_fused_pallas as fqp
-            solver = fqp.make_admm_fused(c)
-            sol, qp_state = solver(Ad, Bd_t, x_ref, xi0,
-                                   qp_warm[0], qp_warm[1])
+    if c.solver.method == "riccati" and qp_warm is not None:
+        # riccati: the warm ADMM iterates with the x-updates factorized by
+        # a backward Riccati recursion in the sparse form (ops/riccati.py)
+        # — kept as the HPIPM-style alternative.  Cold solves (no warm
+        # state yet) fall through to the generic ADMM path below.
+        from mpc_limx_control_tpu.ops import riccati as ricmod
+        solver = ricmod.make_admm_riccati_single(c)
+        sol, qp_state = solver(Ad, Bd_t, x_ref, xi0,
+                               qp_warm[0], qp_warm[1])
         u0 = sol.u[:3]
         left_now = on_l[0] > 0.5
         zeros3 = jnp.zeros_like(u0)

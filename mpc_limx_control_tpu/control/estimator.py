@@ -5,7 +5,7 @@ The reference exposes two interchangeable truth sources behind one struct
 
 * `StateEstimatorFake` reads Gazebo ground truth over ROS
   (include/state_estimator_fake.h:27-116).  With no simulator here, the
-  TPU-native equivalent is a *scripted* deterministic source — a pure
+  equivalent here is a *scripted* deterministic source — a pure
   function of time producing exact odometry for batched scenarios — which
   serves the same role: developing/validating the controller against
   perfect state (SURVEY.md §4 "fake backend / mock boundary").

@@ -1,6 +1,6 @@
 """Jitted closed-loop linear MPC — the minimum end-to-end slice.
 
-TPU-native equivalent of the reference's working numerical core: the
+Batched equivalent of the reference's working numerical core: the
 500-step circle-tracking loop of src/qpSolver_test.cpp:38-75 /
 src/linear_mpc_example.cpp:133-195, re-expressed as
 

@@ -1,10 +1,10 @@
 """Condensation: prediction matrices and dense QP formation.
 
-TPU-native re-design of `QPSolver::buildQPParams` (reference
+Batched re-design of `QPSolver::buildQPParams` (reference
 src/QPSolver.cpp:31-81).  The reference builds A_aug / B_aug with nested
 Python-style loops and `Ad.pow`; here both are produced by a single
 `lax.scan` over the horizon (O(N) sequential steps of batched matmuls), which
-XLA unrolls/fuses into MXU work, and the whole pipeline generalizes to
+XLA unrolls/fuses, and the whole pipeline generalizes to
 time-varying (Ad_t, Bd_t) — required for contact-scheduled SRBD MPC, where B
 switches with the gait (capability the reference's single-support `mpcQP`
 only gestures at).
@@ -67,7 +67,7 @@ def prediction_matrices(Ad: jnp.ndarray, Bd: jnp.ndarray, N: int):
 
     # Row recursion: G_i = Ad_{i-1} @ G_{i-1} + e_{i-1} (x) Bd_{i-1}.
     # G_{i-1}[i-1] is zero before its own injection, so the one-hot add is
-    # exact (no dynamic-index update needed -> TPU friendly).
+    # exact (no dynamic-index update needed).
     onehot = jnp.eye(N, dtype=dtype)
 
     def step_b(g_prev, inp):
@@ -120,50 +120,54 @@ def condense(
     (src/QPSolver.cpp:63-64) are intentionally dropped — see
     oracle/qp_oracle.py for why they cannot be honored.
     """
-    nx = Ad.shape[-1]
-    nu = Bd.shape[-1]
-    dtype = x0.dtype
-    A_blocks, B_blocks = prediction_matrices(Ad, Bd, N)
-    B_mat = _flatten_b(B_blocks)                       # [(N+1)nx, Nnu]
-    nz = N * nu
+    # Full f32 contractions: a TF32 H/f (the GPU default for f32 dots)
+    # moves the walking solve by ~5e-4 of the force scale, half the f32
+    # budget of 1e-3; pinned, it stays at ~3e-6 (chip_smoke phase 6).
+    with jax.default_matmul_precision("float32"):
+        nx = Ad.shape[-1]
+        nu = Bd.shape[-1]
+        dtype = x0.dtype
+        A_blocks, B_blocks = prediction_matrices(Ad, Bd, N)
+        B_mat = _flatten_b(B_blocks)                       # [(N+1)nx, Nnu]
+        nz = N * nu
 
-    # Block-diagonal cost application without materializing Q_bar.
-    Qs = jnp.concatenate(
-        [jnp.broadcast_to(Q, (N, nx, nx)), P[None]], axis=0)  # [N+1,nx,nx]
-    B_rows = B_mat.reshape(N + 1, nx, nz)
-    QB = jnp.einsum("ixy,iyz->ixz", Qs, B_rows).reshape((N + 1) * nx, nz)
-    R_bar = jnp.kron(jnp.eye(N, dtype=dtype), R)
-    H = 2.0 * (B_mat.T @ QB + R_bar)
-    H = 0.5 * (H + H.T)
+        # Block-diagonal cost application without materializing Q_bar.
+        Qs = jnp.concatenate(
+            [jnp.broadcast_to(Q, (N, nx, nx)), P[None]], axis=0)  # [N+1,nx,nx]
+        B_rows = B_mat.reshape(N + 1, nx, nz)
+        QB = jnp.einsum("ixy,iyz->ixz", Qs, B_rows).reshape((N + 1) * nx, nz)
+        R_bar = jnp.kron(jnp.eye(N, dtype=dtype), R)
+        H = 2.0 * (B_mat.T @ QB + R_bar)
+        H = 0.5 * (H + H.T)
 
-    x_pred_free = (A_blocks @ x0).reshape(-1)          # A_aug x0, [(N+1)nx]
-    err = x_pred_free - x_ref.reshape(-1)
-    f = 2.0 * (QB.T @ err)
+        x_pred_free = (A_blocks @ x0).reshape(-1)      # A_aug x0 [(N+1)nx]
+        err = x_pred_free - x_ref.reshape(-1)
+        f = 2.0 * (QB.T @ err)
 
-    G_parts = []
-    h_parts = []
-    if u_min is not None:
-        eye_z = jnp.eye(nz, dtype=dtype)
-        G_parts += [eye_z, -eye_z]
-        h_parts += [jnp.full((nz,), u_max, dtype),
-                    jnp.full((nz,), -u_min, dtype)]
+        G_parts = []
+        h_parts = []
+        if u_min is not None:
+            eye_z = jnp.eye(nz, dtype=dtype)
+            G_parts += [eye_z, -eye_z]
+            h_parts += [jnp.full((nz,), u_max, dtype),
+                        jnp.full((nz,), -u_min, dtype)]
 
-    if x_min is not None:
-        B_pred = B_mat[nx:]                            # states 1..N
-        xf = x_pred_free[nx:]
-        x_max_t = jnp.tile(jnp.asarray(x_max, dtype), N)
-        x_min_t = jnp.tile(jnp.asarray(x_min, dtype), N)
-        G_parts += [B_pred, -B_pred]
-        h_parts += [x_max_t - xf, -(x_min_t - xf)]
+        if x_min is not None:
+            B_pred = B_mat[nx:]                            # states 1..N
+            xf = x_pred_free[nx:]
+            x_max_t = jnp.tile(jnp.asarray(x_max, dtype), N)
+            x_min_t = jnp.tile(jnp.asarray(x_min, dtype), N)
+            G_parts += [B_pred, -B_pred]
+            h_parts += [x_max_t - xf, -(x_min_t - xf)]
 
-    if extra_G is not None:
-        G_parts.append(extra_G)
-        h_parts.append(extra_h)
+        if extra_G is not None:
+            G_parts.append(extra_G)
+            h_parts.append(extra_h)
 
-    G = jnp.concatenate(G_parts, axis=0)
-    h = jnp.concatenate(h_parts, axis=0)
-    return CondensedQP(H=H, f=f, G=G, h=h,
-                       A_blocks=A_blocks, B_blocks=B_blocks)
+        G = jnp.concatenate(G_parts, axis=0)
+        h = jnp.concatenate(h_parts, axis=0)
+        return CondensedQP(H=H, f=f, G=G, h=h,
+                           A_blocks=A_blocks, B_blocks=B_blocks)
 
 
 def condense_lti_diag(Ad: jnp.ndarray, Bd_t: jnp.ndarray,

@@ -5,7 +5,7 @@ Pure-functional re-design of the reference `stateEstimator`
 left foot p(3), right foot p(3)], observation y(14) = [relative foot
 positions(6), relative foot velocities(6), foot heights(2)].
 
-Same math, TPU shape:
+Same math, batched shape:
   * constant A with dt position<-velocity coupling and B integrating IMU
     acceleration (0.5 dt^2, dt) (include/stateEstimator.h:221-223)
   * process/measurement noise exactly the reference's dt-scaled blocks
@@ -65,11 +65,11 @@ def kf_update(cfg: EstimatorConfig, state: KFState, meas: KFMeasurement,
               dt: float) -> KFState:
     """One predict+update step.  Batched over leading axes of `state`.
 
-    The whole update runs at full float32 matmul precision: on TPU the
-    default f32 matmul precision is bf16-on-MXU, whose ~1e-2 relative
-    error is enough to make the innovation covariance S = C P C' + R lose
-    positive-definiteness (Cholesky -> NaN within two control ticks,
-    observed on v5e).  The filter is 12x12 so full precision is free.
+    The whole update runs at full float32 matmul precision: a
+    reduced-precision f32 matmul (TF32 on the GPU) has enough relative
+    error to make the innovation covariance S = C P C' + R lose
+    positive-definiteness (Cholesky -> NaN within two control ticks).
+    The filter is 12x12 so full precision is free.
     """
     with jax.default_matmul_precision("float32"):
         return _kf_update_body(cfg, state, meas, dt)

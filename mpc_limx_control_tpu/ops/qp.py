@@ -1,8 +1,8 @@
-"""Batched, branch-free QP solvers for TPU.
+"""Batched, branch-free QP solvers.
 
 The reference solves each condensed MPC QP with qpOASES' dense active-set
 method, nWSR = 50000 (src/QPSolver.cpp:83-106) — an inherently sequential,
-branchy algorithm that cannot be batched on SIMD hardware.  The TPU engine
+branchy algorithm that cannot be batched on SIMD hardware.  This engine
 replaces it with two fixed-iteration, fully vectorized solvers over
 
     min_z 1/2 z' H z + f' z   s.t.   G z <= h
@@ -162,30 +162,17 @@ def pdip_qp(H: jnp.ndarray, f: jnp.ndarray, G: jnp.ndarray, h: jnp.ndarray,
     return QPSolution(u=u, iterations=iters, residual=merit_best)
 
 
-def _pad_to(x, B_pad, fill):
-    B = x.shape[0]
-    if B == B_pad:
-        return x
-    pad = [(0, B_pad - B)] + [(0, 0)] * (x.ndim - 1)
-    return jnp.pad(x, pad, constant_values=fill)
-
-
-def _batched_pdip(H, f, G, h, iters: int, use_pallas: bool,
-                  z_warm=None, lam_warm=None):
+def _batched_pdip(H, f, G, h, iters: int, z_warm=None, lam_warm=None):
     """Batch-first PDIP: H [B,n,n], f [B,n], G [B,m,n], h [B,m].
 
-    Same math as :func:`pdip_qp` but with the per-iteration SPD solves done
-    by the Pallas batched Cholesky kernel (ops/chol_pallas.py) when
-    `use_pallas` — ~3x faster than XLA's cholesky+triangular_solve chain
-    on v5e at these sizes.
+    Same math as :func:`pdip_qp`, with one batched Cholesky per Newton
+    step shared by the affine and corrector solves.
 
     (z_warm, lam_warm): warm start from a previous (similar) solve —
     slacks are re-derived from z_warm and pushed strictly interior;
     multipliers floored away from zero.  Cuts the iteration count roughly
     in half for receding-horizon resolves.
     """
-    from mpc_limx_control_tpu.ops import chol_pallas
-
     dtype = H.dtype
     B, n = f.shape
     m = h.shape[-1]
@@ -194,37 +181,16 @@ def _batched_pdip(H, f, G, h, iters: int, use_pallas: bool,
     reg = jnp.asarray(1e-12 if dtype == jnp.float64 else 1e-6, dtype)
     eye = jnp.eye(n, dtype=dtype)
 
-    if use_pallas:
-        B_pad = ((B + chol_pallas.LANES - 1)
-                 // chol_pallas.LANES) * chol_pallas.LANES
-        if B_pad != B:
-            H = _pad_to(H, B_pad, 0.0) + jnp.where(
-                jnp.arange(B_pad)[:, None, None] >= B, eye, 0.0)
-            f = _pad_to(f, B_pad, 0.0)
-            G = _pad_to(G, B_pad, 0.0)
-            h = _pad_to(h, B_pad, 1.0)
-            if z_warm is not None:
-                z_warm = _pad_to(z_warm, B_pad, 0.0)
-                lam_warm = _pad_to(lam_warm, B_pad, 1.0)
+    def make_solver(M):
+        L = jnp.linalg.cholesky(M + reg * eye)
 
-        def make_solver(M):
-            # factor ONCE per Newton step; affine + corrector solves share
-            # the factor (the previous structure refactored M for the
-            # corrector — 2 factorizations per iteration)
-            L = chol_pallas.cholesky(M + reg * eye)
-            return lambda r: chol_pallas.chol_solve(
-                L, r[..., None])[..., 0]
-    else:
-        def make_solver(M):
-            L = jnp.linalg.cholesky(M + reg * eye)
+        def solve(r):
+            y = jax.scipy.linalg.solve_triangular(
+                L, r[..., None], lower=True)
+            return jax.scipy.linalg.solve_triangular(
+                jnp.swapaxes(L, -1, -2), y, lower=False)[..., 0]
 
-            def solve(r):
-                y = jax.scipy.linalg.solve_triangular(
-                    L, r[..., None], lower=True)
-                return jax.scipy.linalg.solve_triangular(
-                    jnp.swapaxes(L, -1, -2), y, lower=False)[..., 0]
-
-            return solve
+        return solve
 
     Gt = jnp.swapaxes(G, -1, -2)
 
@@ -243,15 +209,7 @@ def _batched_pdip(H, f, G, h, iters: int, use_pallas: bool,
         del lam_warm
     else:
         # cold start: z = -H^{-1} f, slacks shifted interior
-        if use_pallas:
-            z0 = -chol_pallas.posdef_solve(
-                H + reg * eye, f[..., None])[..., 0]
-        else:
-            Lh = jnp.linalg.cholesky(H + reg * eye)
-            y = jax.scipy.linalg.solve_triangular(Lh, f[..., None],
-                                                  lower=True)
-            z0 = -jax.scipy.linalg.solve_triangular(
-                jnp.swapaxes(Lh, -1, -2), y, lower=False)[..., 0]
+        z0 = -make_solver(H)(f)
         s0_raw = h - jnp.einsum("bmn,bn->bm", G, z0)
         shift = jnp.maximum(
             0.0, -jnp.min(s0_raw, axis=-1, keepdims=True)) + 1.0
@@ -318,20 +276,17 @@ def _batched_pdip(H, f, G, h, iters: int, use_pallas: bool,
     init = (z0, s0, lam0, z0, merit_of(z0, s0, lam0))
     (z_f, s_f, lam_f, z_best, merit_best), _ = lax.scan(
         newton_step, init, None, length=iters)
-    sol = QPSolution(u=z_best[:B], iterations=iters,
-                     residual=merit_best[:B])
-    return sol, (z_best[:B], lam_f[:B])
+    sol = QPSolution(u=z_best, iterations=iters, residual=merit_best)
+    return sol, (z_best, lam_f)
 
 
-def make_pdip(iters: int = 20, use_pallas: Optional[bool] = None):
+def make_pdip(iters: int = 20):
     """A pdip solver whose vmap rule dispatches to the batch-native
-    implementation (with the Pallas Cholesky kernel on TPU).
+    implementation.
 
     Usage: `solver = make_pdip(iters); jax.vmap(solver)(H, f, G, h)` or
-    call it unbatched.  `use_pallas=None` auto-selects by backend.
+    call it unbatched.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
 
     @jax.custom_batching.custom_vmap
     def solve(H, f, G, h):
@@ -345,23 +300,21 @@ def make_pdip(iters: int = 20, use_pallas: Optional[bool] = None):
 
         out, _ = _batched_pdip(bc(H, in_batched[0]), bc(f, in_batched[1]),
                                bc(G, in_batched[2]), bc(h, in_batched[3]),
-                               iters, use_pallas)
+                               iters)
         return out, QPSolution(u=True, iterations=False, residual=True)
 
     return solve
 
 
-def make_pdip_warm(iters: int = 6, use_pallas: Optional[bool] = None):
+def make_pdip_warm(iters: int = 6):
     """Warm-started variant: fn(H, f, G, h, z_warm, lam_warm) ->
     (QPSolution, (z_final, lam_final)) for threading through receding-
-    horizon resolves.  Vmap dispatches to the batched Pallas path."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    horizon resolves.  Vmap dispatches to the batched path."""
 
     @jax.custom_batching.custom_vmap
     def solve(H, f, G, h, z_warm, lam_warm):
         sol, zl = _batched_pdip(
-            H[None], f[None], G[None], h[None], iters, False,
+            H[None], f[None], G[None], h[None], iters,
             z_warm[None], lam_warm[None])
         return (QPSolution(u=sol.u[0], iterations=sol.iterations,
                            residual=sol.residual[0]),
@@ -371,7 +324,7 @@ def make_pdip_warm(iters: int = 6, use_pallas: Optional[bool] = None):
     def _rule(axis_size, in_batched, *args):
         args = [a if b else jnp.broadcast_to(a, (axis_size, *a.shape))
                 for a, b in zip(args, in_batched)]
-        out = _batched_pdip(*args[:4], iters, use_pallas,
+        out = _batched_pdip(*args[:4], iters,
                             z_warm=args[4], lam_warm=args[5])
         spec = (QPSolution(u=True, iterations=False, residual=True),
                 (True, True))
@@ -381,52 +334,29 @@ def make_pdip_warm(iters: int = 6, use_pallas: Optional[bool] = None):
 
 
 def _batched_admm(H, f, G, h, z_warm, y_warm, iters: int, rho: float,
-                  alpha: float, use_pallas: bool):
+                  alpha: float):
     """Batch-first over-relaxed ADMM for  min 1/2 z'Hz + f'z  s.t. Gz <= h.
 
     ONE factorization of (H + rho G'G) per solve (vs one per Newton step in
     PDIP) and matvec-only iterations — the cheapest warm-started batched
     path.  Returns (QPSolution, (z, y)) with y the scaled dual, threaded
-    tick-to-tick exactly like the PDIP warm state.  Measured on v5e at
-    B=4096/nz=60/m=120: 10 iterations run in 0.45x the time of the 6-step
-    warm PDIP at matched closed-loop accuracy.
+    tick-to-tick exactly like the PDIP warm state.
     """
-    from mpc_limx_control_tpu.ops import chol_pallas
-
     dtype = H.dtype
-    B, n = f.shape
+    n = f.shape[-1]
     reg = jnp.asarray(1e-12 if dtype == jnp.float64 else 1e-6, dtype)
     eye = jnp.eye(n, dtype=dtype)
     Gt = jnp.swapaxes(G, -1, -2)
-    K = H + rho * jnp.matmul(Gt, G) + reg * eye
 
     # One explicit K^{-1} per solve (Cholesky + one triangular solve with
-    # n RHS + an MXU GEMM), then every ADMM iteration is matmul-only:
-    # batched triangular solves per iteration are sequential, VPU-bound
-    # ops on TPU (~10x the cost of the equivalent GEMV).  Measured at
-    # B=4096/n=60: 15.9 ms vs 25.0 ms for the solve-per-iteration form.
-    # ADMM tolerates the f32 inverse's ~1e-2 |K Kinv - I| residual (an
-    # inexact-ADMM perturbation, self-corrected by the iteration) — but
-    # NOT the bf16 MXU default: forming Kinv/M1 at TPU default matmul
-    # precision degraded the walking closed loop (height 0.56 vs 0.655),
-    # so the inverse formation and iteration matvecs are pinned to full
-    # f32 (they are small and HBM-bound; the pin is free).
-    if use_pallas:
-        B_pad = ((B + chol_pallas.LANES - 1)
-                 // chol_pallas.LANES) * chol_pallas.LANES
-        if B_pad != B:
-            K = _pad_to(K, B_pad, 0.0) + jnp.where(
-                jnp.arange(B_pad)[:, None, None] >= B, eye, 0.0)
-            f = _pad_to(f, B_pad, 0.0)
-            G = _pad_to(G, B_pad, 0.0)
-            Gt = jnp.swapaxes(G, -1, -2)
-            h = _pad_to(h, B_pad, 1.0)
-            z_warm = _pad_to(z_warm, B_pad, 0.0)
-            y_warm = _pad_to(y_warm, B_pad, 0.0)
-        L = chol_pallas.cholesky(K)
-    else:
-        L = jnp.linalg.cholesky(K)
+    # n RHS + a GEMM), then every ADMM iteration is matmul-only.  ADMM
+    # tolerates the f32 inverse's ~1e-2 |K Kinv - I| residual (an
+    # inexact-ADMM perturbation, self-corrected by the iteration) but not
+    # reduced-precision matmuls (TF32 on the GPU): forming K, Kinv and M1
+    # and the iteration matvecs are pinned to full f32.
     with jax.default_matmul_precision("float32"):
+        K = H + rho * jnp.matmul(Gt, G) + reg * eye
+        L = jnp.linalg.cholesky(K)
         Linv = jax.scipy.linalg.solve_triangular(
             L, jnp.broadcast_to(eye, L.shape), lower=True)
         Kinv = jnp.matmul(jnp.swapaxes(Linv, -1, -2), Linv)
@@ -447,18 +377,19 @@ def _batched_admm(H, f, G, h, z_warm, y_warm, iters: int, rho: float,
         (v, y), _ = lax.scan(step, (v0, y_warm), None, length=iters)
         z = z_base + jnp.einsum("bnm,bm->bn", M1, v - y)
 
-    # splitting-consistency residual |Gz - v|_inf: the ADMM convergence
-    # measure (OSQP primal residual); strictly positive for any finite
-    # iteration count, so downstream schedule logic can use residual > 0
-    # as the "a QP was solved this tick" marker
-    r_prim = jnp.max(jnp.abs(jnp.einsum("bmn,bn->bm", G, z) - v), axis=-1)
+        # splitting-consistency residual |Gz - v|_inf: the ADMM
+        # convergence measure (OSQP primal residual); strictly positive
+        # for any finite iteration count, so downstream schedule logic can
+        # use residual > 0 as the "a QP was solved this tick" marker
+        r_prim = jnp.max(jnp.abs(jnp.einsum("bmn,bn->bm", G, z) - v),
+                         axis=-1)
     residual = r_prim / (1.0 + jnp.max(jnp.abs(f), axis=-1))
-    sol = QPSolution(u=z[:B], iterations=iters, residual=residual[:B])
-    return sol, (z[:B], y[:B])
+    sol = QPSolution(u=z, iterations=iters, residual=residual)
+    return sol, (z, y)
 
 
 def _batched_admm_kron(H, f, Gu, h, z_warm, y_warm, iters: int, rho: float,
-                       alpha: float, use_pallas: bool):
+                       alpha: float):
     """Batch-first ADMM with block-diagonal constraints G = kron(I_N, Gu).
 
     The per-step friction cone gives every horizon step the same [mu,nu]
@@ -472,8 +403,6 @@ def _batched_admm_kron(H, f, Gu, h, z_warm, y_warm, iters: int, rho: float,
     H [B,n,n]; f [B,n]; Gu [mu,nu] (shared across batch and horizon);
     h [B,m] with m = N*mu, n = N*nu.
     """
-    from mpc_limx_control_tpu.ops import chol_pallas
-
     dtype = H.dtype
     B, n = f.shape
     mu_, nu_ = Gu.shape
@@ -483,28 +412,14 @@ def _batched_admm_kron(H, f, Gu, h, z_warm, y_warm, iters: int, rho: float,
     eye = jnp.eye(n, dtype=dtype)
     GtG = jnp.kron(jnp.eye(N, dtype=dtype), Gu.T @ Gu)   # constant-folded
     K = H + (rho * GtG + reg * eye)
-
-    if use_pallas:
-        B_pad = ((B + chol_pallas.LANES - 1)
-                 // chol_pallas.LANES) * chol_pallas.LANES
-        if B_pad != B:
-            K = _pad_to(K, B_pad, 0.0) + jnp.where(
-                jnp.arange(B_pad)[:, None, None] >= B, eye, 0.0)
-            f = _pad_to(f, B_pad, 0.0)
-            h = _pad_to(h, B_pad, 1.0)
-            z_warm = _pad_to(z_warm, B_pad, 0.0)
-            y_warm = _pad_to(y_warm, B_pad, 0.0)
-            B = B_pad
-        L = chol_pallas.cholesky(K)
-    else:
-        L = jnp.linalg.cholesky(K)
+    L = jnp.linalg.cholesky(K)
 
     def g_mv(z):                                         # G z, [B,m]
         zb = z.reshape(-1, N, nu_)
         return jnp.einsum("mv,bkv->bkm", Gu, zb).reshape(-1, m)
 
     # f32 pin: see _batched_admm — the K^-1 formation is numerically
-    # sensitive; bf16 MXU default silently degrades the closed loop.
+    # sensitive to reduced-precision matmuls.
     with jax.default_matmul_precision("float32"):
         Linv = jax.scipy.linalg.solve_triangular(
             L, jnp.broadcast_to(eye, L.shape), lower=True)
@@ -534,20 +449,17 @@ def _batched_admm_kron(H, f, Gu, h, z_warm, y_warm, iters: int, rho: float,
 
 
 def make_admm_warm_kron(Gu: jnp.ndarray, iters: int = 10, rho: float = 1.0,
-                        alpha: float = 1.6,
-                        use_pallas: Optional[bool] = None):
+                        alpha: float = 1.6):
     """Warm-started ADMM specialized to G = kron(I_N, Gu): fn(H, f, h,
     z_warm, y_warm) -> (QPSolution, (z, y)).  Gu [mu,nu] is closed over
     (a compile-time constant — the friction-cone block); the expanded G is
     never formed."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
 
     @jax.custom_batching.custom_vmap
     def solve(H, f, h, z_warm, y_warm):
         sol, zy = _batched_admm_kron(H[None], f[None], Gu, h[None],
                                      z_warm[None], y_warm[None],
-                                     iters, rho, alpha, False)
+                                     iters, rho, alpha)
         return (QPSolution(u=sol.u[0], iterations=sol.iterations,
                            residual=sol.residual[0]),
                 (zy[0][0], zy[1][0]))
@@ -556,13 +468,8 @@ def make_admm_warm_kron(Gu: jnp.ndarray, iters: int = 10, rho: float = 1.0,
     def _rule(axis_size, in_batched, *args):
         args = [a if b else jnp.broadcast_to(a, (axis_size, *a.shape))
                 for a, b in zip(args, in_batched)]
-        B = args[1].shape[0]
         sol, zy = _batched_admm_kron(args[0], args[1], Gu, args[2],
-                                     args[3], args[4],
-                                     iters, rho, alpha, use_pallas)
-        sol = QPSolution(u=sol.u[:B], iterations=sol.iterations,
-                         residual=sol.residual[:B])
-        zy = (zy[0][:B], zy[1][:B])
+                                     args[3], args[4], iters, rho, alpha)
         spec = (QPSolution(u=True, iterations=False, residual=True),
                 (True, True))
         return (sol, zy), spec
@@ -570,19 +477,16 @@ def make_admm_warm_kron(Gu: jnp.ndarray, iters: int = 10, rho: float = 1.0,
     return solve
 
 
-def make_admm_warm(iters: int = 10, rho: float = 1.0, alpha: float = 1.6,
-                   use_pallas: Optional[bool] = None):
+def make_admm_warm(iters: int = 10, rho: float = 1.0, alpha: float = 1.6):
     """Warm-started batched ADMM: fn(H, f, G, h, z_warm, y_warm) ->
-    (QPSolution, (z, y)).  Vmap dispatches to the batch-native Pallas
-    path; the warm state threads tick-to-tick like the PDIP variant."""
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    (QPSolution, (z, y)).  Vmap dispatches to the batch-native path; the
+    warm state threads tick-to-tick like the PDIP variant."""
 
     @jax.custom_batching.custom_vmap
     def solve(H, f, G, h, z_warm, y_warm):
         sol, zy = _batched_admm(H[None], f[None], G[None], h[None],
                                 z_warm[None], y_warm[None],
-                                iters, rho, alpha, False)
+                                iters, rho, alpha)
         return (QPSolution(u=sol.u[0], iterations=sol.iterations,
                            residual=sol.residual[0]),
                 (zy[0][0], zy[1][0]))
@@ -591,8 +495,7 @@ def make_admm_warm(iters: int = 10, rho: float = 1.0, alpha: float = 1.6,
     def _rule(axis_size, in_batched, *args):
         args = [a if b else jnp.broadcast_to(a, (axis_size, *a.shape))
                 for a, b in zip(args, in_batched)]
-        out = _batched_admm(*args[:4], args[4], args[5],
-                            iters, rho, alpha, use_pallas)
+        out = _batched_admm(*args, iters, rho, alpha)
         spec = (QPSolution(u=True, iterations=False, residual=True),
                 (True, True))
         return out, spec

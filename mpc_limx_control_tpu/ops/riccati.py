@@ -1,6 +1,6 @@
 """Riccati-form ADMM for the stance GRF MPC (HPIPM-style alternative).
 
-The condensed path (ops/condense.py + ops/qp.py / the fused Pallas kernel)
+The condensed path (ops/condense.py + ops/qp.py / ops/mpc_fused_pallas.py)
 eliminates the states and factors a dense nz x nz matrix; the reference's
 own solve works the same way through qpOASES (src/QPSolver.cpp:31-106).
 This module keeps the SPARSE (state-and-control) form instead and solves
@@ -23,9 +23,9 @@ iteration-INVARIANT (they depend only on the QP matrices), so the
 factorization runs once per tick and every ADMM iteration is one backward
 linear sweep + one forward rollout of [B, nx] vectors.
 
-Where it wins/loses on TPU is an empirical question this module exists to
-answer (NOTES.md records the head-to-head); its sequential 2N-step sweeps
-trade the condensed path's dense-matrix work for scan latency.
+Where it wins or loses is an empirical question this module exists to
+answer; its sequential 2N-step sweeps trade the condensed path's
+dense-matrix work for scan latency.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Capture real walking/standing SRBD QPs from closed-loop rollouts.
 
-The accuracy story of this repo rests on comparing the TPU solvers against
+The accuracy story of this repo rests on comparing the batched solvers against
 float64 oracles on *the problems the controller actually solves* — not just
 synthetic QPs.  This module (a) steps the closed-loop plant and records the
 controller state at sampled ticks, and (b) rebuilds, in float64 NumPy, the
@@ -10,8 +10,8 @@ placement, anchor logic, moment arms, SRBD linearization, exact-ZOH
 discretization, reference synthesis, and friction-cone rows.
 
 Capture fidelity is guarded by tests/test_active_set_oracle.py: the f64
-oracle solution of the rebuilt QP must match the u the in-loop TPU-path
-solver produced at that tick (to the solver's accuracy), for cold AND
+oracle solution of the rebuilt QP must match the u the in-loop solver
+produced at that tick (to the solver's accuracy), for cold AND
 warm-started intermediate problems.
 
 Reference lineage: the QP corresponds to the intended stance-force MPC of
@@ -47,6 +47,9 @@ class CapturedQP(NamedTuple):
     iteration: int
     warm: bool             # True once the warm state is threaded (tick > 0)
     nu: int                # 3 (walking single-support) or 6 (standing)
+    # the uncondensed inputs of the same QP (float64), as the batched
+    # solvers take them: Ad [nx,nx], Bd_t [N,nx,nu], x_ref [N+1,nx], x0
+    inputs: tuple = ()
 
 
 def condense_ltv_f64(Ad, Bd_t, Q, R, P, N, x0, x_ref):
@@ -96,9 +99,9 @@ def build_walking_qp_f64(cfg: ControllerConfig, state: ro.PlantState,
     """Rebuild, in float64, the single-support walking GRF QP that
     controller.tick poses at `state` (truth odometry).
 
-    Returns (H [60,60], f [60], G [120,60], h [120]) for the default
-    N = 20 horizon.  Mirrors control/controller.py:tick ->
-    stance_mpc_single_support step by step.
+    Returns (H [60,60], f [60], G [120,60], h [120], inputs) for the
+    default N = 20 horizon, inputs = (Ad, Bd_t, x_ref, x0).  Mirrors
+    control/controller.py:tick -> stance_mpc_single_support step by step.
     """
     assert cfg.mode == "walk"
     c = cfg.srbd
@@ -162,18 +165,19 @@ def build_walking_qp_f64(cfg: ControllerConfig, state: ro.PlantState,
     Q = np.diag(np.asarray(c.q_diag, np.float64))
     R = np.diag(np.asarray(c.r_diag, np.float64))
     P = c.p_scale * Q
-    H, f = condense_ltv_f64(Ad, Bd_t, Q, R, P, N,
-                            np.asarray(xi0), np.asarray(x_ref))
+    inputs = tuple(np.asarray(a) for a in (Ad, Bd_t, x_ref, xi0))
+    H, f = condense_ltv_f64(*inputs[:2], Q, R, P, N, *inputs[3:], inputs[2])
 
     Gnp, hnp = srbd.friction_cone_rows(c, N, jnp.float64)
-    return H, f, np.asarray(Gnp), np.asarray(hnp)
+    return H, f, np.asarray(Gnp), np.asarray(hnp), inputs
 
 
 def build_standing_qp_f64(cfg: ControllerConfig, state: ro.PlantState,
                           iteration: float) -> tuple:
     """Rebuild, in float64, the two-foot standing GRF QP of stance_mpc
     (nu = 6, both feet on over the whole horizon, position anchored over
-    the support midpoint)."""
+    the support midpoint).  Returns (H, f, G, h, inputs) as
+    :func:`build_walking_qp_f64`."""
     assert cfg.mode == "stand"
     c = cfg.srbd
     N = c.horizon
@@ -206,8 +210,8 @@ def build_standing_qp_f64(cfg: ControllerConfig, state: ro.PlantState,
     Q = np.diag(np.asarray(c.q_diag, np.float64))
     R = np.diag(np.asarray(tuple(c.r_diag) * 2, np.float64))
     P = c.p_scale * Q
-    H, f = condense_ltv_f64(Ad, Bd_t, Q, R, P, N,
-                            np.asarray(xi0), np.asarray(x_ref))
+    inputs = tuple(np.asarray(a) for a in (Ad, Bd_t, x_ref, xi0))
+    H, f = condense_ltv_f64(*inputs[:2], Q, R, P, N, *inputs[3:], inputs[2])
 
     # two-foot cone rows with both feet on (controller._cone_rows/_bounds)
     mu = c.friction_mu
@@ -218,7 +222,7 @@ def build_standing_qp_f64(cfg: ControllerConfig, state: ro.PlantState,
     G = np.kron(np.eye(N), Gu)
     hu = np.asarray([0.0, 0.0, 0.0, 0.0, c.fz_max, -c.fz_min] * 2)
     h = np.tile(hu, N)
-    return H, f, G, h
+    return H, f, G, h, inputs
 
 
 def capture_corpus(cfg: ControllerConfig, ticks: int, sample_every: int,
@@ -227,8 +231,8 @@ def capture_corpus(cfg: ControllerConfig, ticks: int, sample_every: int,
     """Run the closed loop for `ticks` 1 kHz steps and capture the GRF QP
     at every `sample_every`-th tick (from `skip_first` on).
 
-    The controller path is the production one (plant_step — on CPU the
-    unfused XLA composition with the warm ADMM solver); u_loop records the
+    The controller path is the production one (plant_step with the warm
+    ADMM solver); u_loop records the
     force it actually applied, so the captured problems include
     warm-started intermediate solves, not just cold starts.
 
@@ -254,7 +258,7 @@ def capture_corpus(cfg: ControllerConfig, ticks: int, sample_every: int,
         new_state, metrics = step(state, jnp.asarray(float(t),
                                                      state.xi.dtype))
         if pending is not None:
-            H, f, G, h = pending
+            H, f, G, h, inputs = pending
             grf = np.asarray(metrics["grf"], np.float64)
             if cfg.mode == "walk":
                 # u0 is the STANCE foot's force (controller.tick zeroes
@@ -265,6 +269,7 @@ def capture_corpus(cfg: ControllerConfig, ticks: int, sample_every: int,
             else:
                 u_loop = grf
             out.append(CapturedQP(H=H, f=f, G=G, h=h, u_loop=u_loop,
-                                  iteration=t, warm=t > 0, nu=nu))
+                                  iteration=t, warm=t > 0, nu=nu,
+                                  inputs=inputs))
         state = new_state
     return out

@@ -4,7 +4,7 @@ The reference's actual numerical engine is qpOASES' dense active-set method
 (src/QPSolver.cpp:83-106, `QProblem::init` with nWSR = 50000) — a member of
 the exactly-terminating working-set family.  The repo's primary oracle
 (oracle/qp_oracle.py) is a Mehrotra interior-point method; both the oracle
-and the TPU solvers under test were IPM/ADMM-family and shared an author,
+and the batched solvers under test were IPM/ADMM-family and shared an author,
 so "matches the reference's algorithm class" was previously unverifiable
 (VERDICT r4, missing #1).  This module closes that loop: a textbook
 Goldfarb–Idnani dual active-set solver — the same dense active-set family
@@ -31,7 +31,7 @@ normals n_i = -G_i):
 
 No iterative accuracy knob: the result is exact up to f64 roundoff in the
 linear solves.  Used by tests/test_active_set_oracle.py to cross-validate
-the IPM oracle (agreement <= 1e-8) and every TPU solver on random QPs, the
+the IPM oracle (agreement <= 1e-8) and every batched solver on random QPs, the
 500-step qpSolver_test closed loop, and a captured corpus of real
 walking/standing SRBD QPs.
 """

@@ -13,7 +13,7 @@ qpOASES readers).  So the authoritative ground truth for this repo is the
 
 via a Mehrotra predictor-corrector primal-dual interior point method in
 float64 NumPy, iterated adaptively until the KKT residuals drop below 1e-10.
-Every TPU-path solver is tested against this oracle (tolerance on the control
+Every batched solver is tested against this oracle (tolerance on the control
 sequence u, per SURVEY.md §7).
 """
 

@@ -1,11 +1,12 @@
 """Device-mesh scaling: scenario-sharded batched MPC.
 
 The reference's only "distribution" is ROS pub/sub plus a UDP link to one
-robot (SURVEY.md §5).  The TPU engine scales along the scenario batch axis
+robot (SURVEY.md §5).  This engine scales along the scenario batch axis
 instead: thousands of simultaneous MPC problems laid out over a
 `jax.sharding.Mesh` with a single ('data',) axis — per-scenario work is
-tiny and independent, so data parallelism over ICI is the roofline-correct
-mapping (cross-scenario communication only for reduction statistics).
+tiny and independent, so plain data parallelism over the cards (joined
+all to all by NVLink) is the natural mapping: cross-scenario
+communication is only the reduction statistics.
 
 Two styles are provided:
 
@@ -34,14 +35,14 @@ from mpc_limx_control_tpu.control import rollout as ro
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> int:
-    """Bring up jax.distributed for a multi-host pod slice and return the
-    global device count.
+    """Bring up jax.distributed for a multi-host run and return the global
+    device count.
 
     On single-host (or when no coordinator is configured) this is a no-op
     returning the local device count.  After initialization,
     :func:`make_mesh` over `jax.devices()` spans all hosts and the same
     sharded step functions run unchanged — per-host shards stay local,
-    cross-host traffic is only the psum'd statistics (DCN-tolerant).
+    cross-host traffic is only the psum'd statistics.
     """
     if coordinator_address is None:
         import os
@@ -77,7 +78,8 @@ def replicate(tree, mesh: Mesh):
 
 def scenario_stats(metrics: dict) -> dict:
     """Cross-scenario reductions (global means/extremes + argmin-cost
-    scenario).  Under a sharded jit these lower to ICI collectives."""
+    scenario).  Under a sharded jit these lower to cross-device
+    collectives."""
     height = metrics["height"]
     residual = metrics["qp_residual"]
     cost = jnp.abs(height - jnp.mean(height))
@@ -116,7 +118,7 @@ def sharded_rollout(cfg: ControllerConfig, mesh: Mesh, steps: int,
     """Multi-step closed-loop rollout under scenario sharding: a lax.scan
     of the FULL controller tick inside one sharded jit — the deployment
     shape for long scaling runs (zero host round-trips per tick; the
-    cross-scenario statistics psum over ICI every step).
+    cross-scenario statistics are reduced across devices every step).
 
     Returns run(state[B,...], start_iteration) -> (final_state,
     stats-over-time dict of replicated [steps] arrays).

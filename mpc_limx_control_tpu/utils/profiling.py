@@ -5,8 +5,7 @@ loop (include/pinocchio_kinematics.h:94-100); its only metrics are cout
 status lines (SURVEY.md §5).  Here:
 
 * :class:`Timer` — wall-clock scope timer with forced device sync (fetches
-  a scalar; `block_until_ready` alone can return early on tunneled
-  backends).
+  a scalar).
 * :func:`measure_throughput` — solves/s + latency percentiles for any
   jitted step function.
 * :class:`MetricsLogger` — structured per-step metrics to JSONL (tracking
@@ -106,8 +105,9 @@ class MetricsLogger:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/jax-trace"):
-    """jax.profiler trace scope (view with TensorBoard)."""
+def trace(log_dir: str):
+    """jax.profiler trace scope writing to `log_dir` (view with
+    TensorBoard or Perfetto)."""
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir

@@ -1,6 +1,6 @@
 /* pf_runtime — native robot-session runtime for mpc_limx_control_tpu.
  *
- * TPU-native re-design of the reference's L0/L1 robot I/O layer: the limX
+ * Re-design of the reference's L0/L1 robot I/O layer: the limX
  * pointfoot SDK UDP session (reference include/pf_controller_base.h:88-91,
  * src/pf_controller_base.cpp:14-35) and its mutex-guarded latest-value
  * state mailbox, plus the 1 kHz rate-controlled control loop

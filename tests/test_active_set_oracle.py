@@ -1,8 +1,8 @@
 """Cross-validation of the independent dense ACTIVE-SET oracle.
 
 VERDICT r4 missing #1: the repo's only f64 ground truth was a self-written
-Mehrotra IPM — same author and algorithm family as the TPU solvers it
-validates.  oracle/qp_active_set.py is an independent Goldfarb–Idnani dual
+Mehrotra IPM — same author and algorithm family as the batched solvers
+it validates.  oracle/qp_active_set.py is an independent Goldfarb–Idnani dual
 active-set solver (the reference's qpOASES algorithm class,
 src/QPSolver.cpp:83-106) with exact termination.  These tests close the
 validation loop:
@@ -11,7 +11,7 @@ validation loop:
   500-step qpSolver_test closed loop, and on a captured corpus of real
   walking/standing SRBD QPs (cold + warm-started, steady + pushed with
   binding friction-cone constraints);
-* TPU solvers vs the active-set oracle: f64 PDIP <= 1e-6, f32 PDIP
+* batched solvers vs the active-set oracle: f64 PDIP <= 1e-6, f32 PDIP
   <= 2e-3 on the corpus (measured 8.9e-4 on the hardest pushed QP);
 * the production in-loop warm solve (5-iteration warm ADMM) vs exact:
   bounded and recorded (a closed-loop operating point, not a per-QP
@@ -145,8 +145,8 @@ def test_walking_corpus_oracle_agreement(walking_push_corpus):
     assert n_active >= 1, "corpus never activated a constraint"
 
 
-def test_tpu_solvers_vs_active_set_on_corpus(walking_push_corpus):
-    """TPU solver accuracy against the independent oracle on the real
+def test_batched_solvers_vs_active_set_on_corpus(walking_push_corpus):
+    """Batched solver accuracy against the independent oracle on the real
     QPs: f64 PDIP <= 1e-6 (measured ~1e-12); f32 PDIP <= 1e-3 on the
     APPLIED control u0 (measured <= 1e-4) and <= 1e-2 on the full
     60-dim sequence (the f32 precision floor surfaces in the tail
@@ -157,7 +157,7 @@ def test_tpu_solvers_vs_active_set_on_corpus(walking_push_corpus):
     from mpc_limx_control_tpu.ops import qp as qps
 
     cfg, qps_list = walking_push_corpus
-    pdip64 = qps.make_pdip(iters=30, use_pallas=False)
+    pdip64 = qps.make_pdip(iters=30)
     for cq in qps_list:
         z_as, _, _ = solve_qp_active_set(cq.H, cq.f, cq.G, cq.h)
         scale = 1.0 + np.max(np.abs(z_as))
@@ -208,3 +208,55 @@ def test_standing_corpus_vs_oracle():
         scale = 1.0 + np.max(np.abs(z_as))
         assert np.max(np.abs(z_as - z_ip)) / scale < 1e-8
         assert np.max(np.abs(cq.u_loop - z_as[:6])) / scale < 5e-3
+
+
+@pytest.fixture(scope="module")
+def standing_corpus():
+    from mpc_limx_control_tpu.core.config import ControllerConfig
+    from mpc_limx_control_tpu.oracle import corpus
+
+    scfg = ControllerConfig.standing()
+    return scfg, corpus.capture_corpus(scfg, ticks=300, sample_every=100,
+                                       skip_first=60)
+
+
+@pytest.mark.parametrize("mode", ["walk", "stand"])
+def test_xla_solve_f32_vs_f64_on_corpus(mode, walking_push_corpus,
+                                        standing_corpus):
+    """The production XLA solve (condense + warm ADMM, N=20) in f32 on the
+    captured QPs' uncondensed inputs agrees with the same iterates in f64
+    within the f32 budget of 1e-3 of the force scale (measured ~3e-5 /
+    ~1e-4 at 50 cold iterations), and the f64 iterates approach the
+    active-set optimum of the corpus QP as iterations grow."""
+    import copy
+
+    import jax
+    import jax.numpy as jnp
+
+    from mpc_limx_control_tpu.ops import mpc_fused_pallas as fused
+
+    cfg, qs = walking_push_corpus if mode == "walk" else standing_corpus
+    nu = qs[0].nu
+    k = copy.copy(fused._QPConsts(cfg.srbd, two_feet=nu == 6))
+    n = k.N * nu
+    ins = [np.stack([q.inputs[i] for q in qs]) for i in range(4)]
+
+    def solve(dtype, iters):
+        k.iters = iters
+        args = [jnp.asarray(a, dtype) for a in ins]
+        zero = (jnp.zeros((len(qs), n), dtype),
+                jnp.zeros((len(qs), 2 * n), dtype))
+        return np.asarray(jax.jit(
+            lambda *a: fused._xla_solve(k, *a)[0].u)(*args, *zero),
+            np.float64)
+
+    z64 = solve(jnp.float64, 50)
+    scale = 1.0 + np.abs(z64).max(axis=1)
+    err = np.max(np.abs(solve(jnp.float32, 50) - z64).max(axis=1) / scale)
+    assert err < 1e-3, err
+
+    z_as = np.stack([solve_qp_active_set(q.H, q.f, q.G, q.h)[0]
+                     for q in qs])
+    gap = [np.max(np.abs(solve(jnp.float64, it) - z_as).max(axis=1) / scale)
+           for it in (50, 2000)]
+    assert gap[1] < gap[0], gap

@@ -1,6 +1,6 @@
 """Closed-loop circle-tracking tests vs the float64 oracle trajectory.
 
-These are the TPU equivalents of the reference's two runnable oracles
+These are the batched equivalents of the reference's two runnable oracles
 (src/qpSolver_test.cpp, src/linear_mpc_example.cpp) with the printed-output
 eyeball check replaced by numerical assertions (SURVEY.md §4).
 """
@@ -39,7 +39,7 @@ def test_closed_loop_f64_matches_oracle(oracle_run):
 
 def test_closed_loop_f32_within_budget(oracle_run):
     """BASELINE.md: control-sequence max error <= 1e-3 vs the reference
-    pipeline on identical horizons — here in TPU-native f32."""
+    pipeline on identical horizons — here in f32."""
     cfg = MPCConfig(solver=SolverConfig(iters=25))
     params = linear_mpc.setup(cfg, dtype=jnp.float32)
     run = jax.jit(

@@ -88,10 +88,8 @@ def test_admm_kron_matches_dense_admm():
     z0 = jax.random.normal(key[4], (B, n), dtype) * 0.1
     y0 = jnp.zeros((B, m), dtype)
 
-    dense = qps.make_admm_warm(iters=25, rho=0.7, alpha=1.5,
-                               use_pallas=False)
-    kron = qps.make_admm_warm_kron(Gu, iters=25, rho=0.7, alpha=1.5,
-                                   use_pallas=False)
+    dense = qps.make_admm_warm(iters=25, rho=0.7, alpha=1.5)
+    kron = qps.make_admm_warm_kron(Gu, iters=25, rho=0.7, alpha=1.5)
     sol_d, (zd, yd) = jax.vmap(
         lambda Hb, fb, hb, zb, yb: dense(Hb, fb, G, hb, zb, yb)
     )(H, f, h, z0, y0)

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from mpc_limx_control_tpu.ops import riccati as ric
-from tests.test_mpc_fused import _walking_inputs, _xla_reference
+from test_mpc_fused import _walking_inputs, _xla_reference
 
 
 def test_riccati_lqr_matches_condensed_unconstrained():

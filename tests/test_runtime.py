@@ -1,7 +1,7 @@
 """Native runtime tests: build, UDP loopback, rate loop.
 
 Exercises the C++ pf_runtime library (runtime/pf_runtime.cpp) through its
-ctypes binding — the TPU-native equivalent of the limxsdk UDP session +
+ctypes binding — the equivalent of the limxsdk UDP session +
 mutex-guarded state mailbox (reference src/pf_controller_base.cpp:14-35).
 """
 

@@ -264,7 +264,7 @@ def test_session_walks_with_kf():
 
 def test_session_production_path_truth_odom():
     """The LIVE session is the production path (VERDICT r2 item 1): the
-    GRF QP threads warm state tick-to-tick (fused Pallas kernel on TPU),
+    GRF QP threads warm state tick-to-tick,
     re-solves on the reference's dtMPC schedule (mpcStep = 5,
     include/MPCParam.h:46-47) holding the force in between, and measures
     per-tick host latency.  Driven over the real UDP link with the

@@ -1,14 +1,13 @@
 """Endurance-soak harness tests (control/rollout.py::soak_rollout).
 
-The on-chip 60k-tick soak lives in tools/soak_tpu.py (committed artifact
-artifacts_soak_tpu.json); here we verify the windowed-reduction harness
-itself on CPU:
+The long on-card soak is examples/run_soak.py; here we verify the
+windowed-reduction harness itself on CPU:
 
   * soak_rollout is exactly batched_rollout run window-by-window — same
     final state, and its per-window stats match reductions of the
     per-tick metrics;
-  * (RUN_SLOW) a 10k-tick CPU soak is stationary by the same gates the
-    chip tool applies (drift slope, tail spread, covariance bound).
+  * (RUN_SLOW) a 10k-tick CPU soak is stationary by the stationarity
+    gates (drift slope, tail spread, covariance bound).
 """
 
 import os
@@ -84,7 +83,7 @@ def test_soak_stationary_summary_fields():
 @pytest.mark.skipif(not RUN_SLOW, reason="slow; set RUN_SLOW=1")
 @pytest.mark.parametrize("mode", ["truth", "kf"])
 def test_soak_stationary_10k_cpu(mode):
-    """10k-tick CPU soak, same gates as tools/soak_tpu.py (scaled)."""
+    """10k-tick CPU soak under the stationarity gates (scaled)."""
     import dataclasses
     cfg = ControllerConfig.walking()
     if mode == "kf":
